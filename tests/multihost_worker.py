@@ -2,7 +2,7 @@
 
 Runs as `python multihost_worker.py <port> <process_id> <num_processes>`:
 forces 2 virtual CPU devices, joins a gloo-backed jax.distributed cluster,
-builds the DCN x ICI hybrid mesh via make_mesh, runs the production
+builds the host-outer hybrid mesh via make_mesh, runs the production
 ShardedScanEngine over the global mesh, and asserts its candidate stream is
 bit-identical to the single-device ScanEngine on the same record.
 """
@@ -19,19 +19,19 @@ jax.config.update("jax_cpu_collectives_implementation", "gloo")
 def main() -> None:
     port, pid, nproc = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3])
 
-    from kmergma_tpu.parallel.mesh import initialize_distributed, make_mesh
+    from kmergma.parallel.mesh import initialize_distributed, make_mesh
 
     initialize_distributed(f"127.0.0.1:{port}", num_processes=nproc, process_id=pid)
     assert jax.process_count() == nproc
 
     import numpy as np
 
-    from kmergma_tpu.ops.scan import ScanEngine
-    from kmergma_tpu.parallel.sharded_scan import ShardedScanEngine
+    from kmergma.ops.scan import ScanEngine
+    from kmergma.parallel.sharded_scan import ShardedScanEngine
 
-    mesh = make_mesh()  # auto-detects multi-process -> hybrid DCN x ICI
+    mesh = make_mesh()  # auto-detects multi-process -> hybrid host-outer mesh
     assert mesh.shape["data"] == 2 * nproc, dict(mesh.shape)
-    # process boundaries must land on the outer (DCN) data dimension
+    # process boundaries must land on the outer data dimension
     procs = [d.process_index for d in mesh.devices.reshape(-1)]
     assert procs == sorted(procs), procs
 
@@ -55,18 +55,18 @@ def main() -> None:
     # ---- scaling estimator (SURVEY.md 5.8, BASELINE >=80% @ N>=2 hosts) ----
     # The only cross-host traffic in a sharded scan is the bitmap all_gather
     # (active regions are host-fetched per process).  Measure the payload
-    # and the per-process pass time so the DCN cost model in docs/design.md
+    # and the per-process pass time so the cross-host cost model in docs/design.md
     # is anchored to observed numbers.
     import time
 
     span, block = sharded.chunk, sharded.block
     nw = n - ws + 1
     n_spans = -(-nw // span)
-    from kmergma_tpu.ops.scan import _span_bucket
+    from kmergma.ops.scan import _span_bucket
 
     spd = _span_bucket(max(1, -(-n_spans // mesh.shape["data"])))
     blocks_total = mesh.shape["data"] * spd * (span // block)
-    gather_bytes = blocks_total  # bool per block crosses DCN once per device
+    gather_bytes = blocks_total  # bool per block crosses hosts once per device
     # per-record payload model: G/block bools per record, independent of N
     assert blocks_total * block >= nw
 

@@ -1,11 +1,11 @@
 """Alignment-layer tests (reference test-KmerGMA.jl:128-162)."""
 
-from kmergma_tpu.ops.align import (
+from kmergma.ops.align import (
     align_unitrange,
     cigar_to_unitrange,
     semiglobal_align,
 )
-from kmergma_tpu.utils.fasta import read_fasta
+from kmergma.utils.fasta import read_fasta
 
 from .conftest import TEST_CONSENSUS_SEQ, TEST_SEQ
 
@@ -55,7 +55,7 @@ def test_batch_align_matches_single_fuzz():
     # mixed subject lengths (grouping path), mutations, indels, IUPAC codes
     import numpy as np
 
-    from kmergma_tpu.ops.align import semiglobal_align_batch
+    from kmergma.ops.align import semiglobal_align_batch
 
     rng = np.random.default_rng(7)
     letters = np.frombuffer(b"ATGCN", dtype=np.uint8)
@@ -73,7 +73,7 @@ def test_batch_align_matches_single_fuzz():
 
 
 def test_batch_align_empty():
-    from kmergma_tpu.ops.align import semiglobal_align_batch
+    from kmergma.ops.align import semiglobal_align_batch
 
     assert semiglobal_align_batch("ACGT", []) == []
 
@@ -84,7 +84,7 @@ def test_device_align_matches_host_fuzz():
     codes and mixed subject lengths."""
     import numpy as np
 
-    from kmergma_tpu.ops.align_device import semiglobal_align_device
+    from kmergma.ops.align_device import semiglobal_align_device
 
     rng = np.random.default_rng(11)
     letters = "ATGCN"
@@ -107,7 +107,7 @@ def test_device_align_indel_mutants_fuzz():
     E and F gap runs, leading/trailing free gaps) - device == host."""
     import numpy as np
 
-    from kmergma_tpu.ops.align_device import semiglobal_align_device
+    from kmergma.ops.align_device import semiglobal_align_device
 
     rng = np.random.default_rng(12)
     query = "".join("ATGC"[i] for i in rng.integers(0, 4, 120))
@@ -137,7 +137,7 @@ def test_device_align_run_overflow_falls_back(monkeypatch):
     back to the exact host oracle (forced here by shrinking the cap)."""
     import numpy as np
 
-    import kmergma_tpu.ops.align_device as ad
+    import kmergma.ops.align_device as ad
 
     monkeypatch.setattr(ad, "RLE_CAP", 2)
     rng = np.random.default_rng(13)
@@ -155,8 +155,8 @@ def test_batch_align_without_native_toolchain(monkeypatch):
     stay bit-identical) when the native library is unavailable."""
     import numpy as np
 
-    import kmergma_tpu.utils.native as native_mod
-    from kmergma_tpu.ops.align import semiglobal_align_batch
+    import kmergma.utils.native as native_mod
+    from kmergma.ops.align import semiglobal_align_batch
 
     monkeypatch.setattr(native_mod, "get_lib", lambda: None)
     rng = np.random.default_rng(14)

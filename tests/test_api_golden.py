@@ -5,7 +5,7 @@ import warnings
 
 import pytest
 
-from kmergma_tpu.api import find_genes, find_genes_cluster_mode, write_results
+from kmergma.api import find_genes, find_genes_cluster_mode, write_results
 
 
 REFERENCE_GOLDEN_HITS = [
@@ -95,7 +95,7 @@ class TestWarnings:
 
 
 def test_write_results(tmp_path, mini_genome, ref_fasta):
-    from kmergma_tpu.utils.fasta import read_fasta
+    from kmergma.utils.fasta import read_fasta
 
     hits = find_genes(genome_path=mini_genome, ref_path=ref_fasta, verbose=False)[0]
     out = tmp_path / "hits.fasta"

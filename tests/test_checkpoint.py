@@ -2,8 +2,8 @@
 
 import json
 
-from kmergma_tpu import gen_ref_ws_cons
-from kmergma_tpu.models.miner import mine_genome
+from kmergma import gen_ref_ws_cons
+from kmergma.models.miner import mine_genome
 
 
 def test_stats_populated(ref_fasta, mini_genome):
@@ -36,7 +36,7 @@ def test_checkpoint_resume(tmp_path, ref_fasta, test_genome):
 
 
 def test_checkpoint_partial_restart(tmp_path, ref_fasta, test_genome):
-    from kmergma_tpu.utils.checkpoint import ScanCheckpoint
+    from kmergma.utils.checkpoint import ScanCheckpoint
 
     profile = gen_ref_ws_cons(ref_fasta, 6)
     full = mine_genome(test_genome, profile, thr=30, do_align=True, get_hit_loci=True)
@@ -64,9 +64,9 @@ def test_checkpoint_with_sharded_engine(tmp_path, ref_fasta, test_genome):
     """checkpoint_path composes with devices=N: per-record resume through
     the sharded engine yields the golden hits (mid-record segment resume is
     single-device only, documented)."""
-    from kmergma_tpu.parallel.mesh import make_mesh
-    from kmergma_tpu.parallel.sharded_scan import ShardedScanEngine
-    from kmergma_tpu.utils.checkpoint import ScanCheckpoint
+    from kmergma.parallel.mesh import make_mesh
+    from kmergma.parallel.sharded_scan import ShardedScanEngine
+    from kmergma.utils.checkpoint import ScanCheckpoint
 
     profile = gen_ref_ws_cons(ref_fasta, 6)
     full = mine_genome(test_genome, profile, thr=30, do_align=True, get_hit_loci=True)

@@ -2,7 +2,7 @@
 
 import json
 
-from kmergma_tpu.utils.cli import main
+from kmergma.utils.cli import main
 
 
 def test_cli_find_genes(tmp_path, capsys, mini_genome, ref_fasta):

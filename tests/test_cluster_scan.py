@@ -1,18 +1,18 @@
 """Conformance of the one-pass cluster engine (ops/scan_cluster.py):
 per-cluster candidate streams must be bit-identical to running each
-cluster's ScanEngine serially (the round-1 production path)."""
+cluster's ScanEngine serially (the original production path)."""
 
 import numpy as np
 import pytest
 
-from kmergma_tpu.ops.reference import RefProfile, cluster_ref_api, eliminate_null_params
-from kmergma_tpu.ops.scan import ScanEngine
-from kmergma_tpu.ops.scan_cluster import ClusterScanEngine
+from kmergma.ops.reference import RefProfile, cluster_ref_api, eliminate_null_params
+from kmergma.ops.scan import ScanEngine
+from kmergma.ops.scan_cluster import ClusterScanEngine
 
 
 def _mk_profile(rng, k, ws, r):
     """A synthetic integer summed profile of r random records of length ws."""
-    from kmergma_tpu.ops.kmers import kmer_count
+    from kmergma.ops.kmers import kmer_count
 
     sums = np.zeros(4**k, dtype=np.int64)
     for _ in range(r):
@@ -45,32 +45,11 @@ def test_cluster_streams_match_serial_engines(seed):
         assert fused[ci][1] == stream, f"cluster {ci} stream mismatch"
 
 
-def test_cluster_pallas_matches_xla_bitmaps():
-    """The use_pallas=True wiring of _span_bitmaps (codes_pair_ab_kcodes
-    group-0 ab reuse + K-code sharing across windowsize groups) must produce
-    streams identical to the XLA path.  On CPU the Mosaic kernels run in
-    interpret mode, so this exercises the exact TPU wiring."""
-    rng = np.random.default_rng(3)
-    k = 5
-    windowsizes = [96, 96, 110]  # >= 2 windowsize groups
-    profiles = [_mk_profile(rng, k, ws, r) for ws, r in zip(windowsizes, [3, 5, 4])]
-    codes = rng.integers(0, 4, size=3000, dtype=np.int8)
-    thrs = [55.0, 60.0, 52.0]
-
-    ce_x = ClusterScanEngine(profiles, k=k, use_pallas=False)
-    ce_p = ClusterScanEngine(profiles, k=k, use_pallas=True)
-    assert ce_p.use_pallas
-    out_x = ce_x.record_streams(codes, thrs)
-    out_p = ce_p.record_streams(codes, thrs)
-    for ci, (x, p) in enumerate(zip(out_x, out_p)):
-        assert x == p, f"cluster {ci} pallas/XLA stream mismatch"
-
-
 def test_cluster_groups_share_windowsize(ref_fasta):
     clusters = eliminate_null_params(cluster_ref_api(ref_fasta, 6, cutoffs=[7, 12, 20, 25]))
     ce = ClusterScanEngine(clusters.profiles, k=6)
     # reference test set: 6 clusters with windowsizes [288,288,288,289,290,289]
-    # -> 3 groups, so the pair-kernel hot loop runs 3x not 6x per span
+    # -> 3 groups, so the pair-count hot loop runs 3x not 6x per span
     assert len(ce.groups) == 3
     assert sum(len(g[2]) for g in ce.groups) == 6
 

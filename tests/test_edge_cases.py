@@ -4,10 +4,10 @@ replicate rather than fix."""
 
 import numpy as np
 
-from kmergma_tpu import gen_ref_ws_cons
-from kmergma_tpu.models.miner import mine_genome
-from kmergma_tpu.models.state_machine import RawHit, candidate_stream_from_dists, replay_single
-from kmergma_tpu.utils.fasta import FastaRecord, read_fasta
+from kmergma import gen_ref_ws_cons
+from kmergma.models.miner import mine_genome
+from kmergma.models.state_machine import RawHit, candidate_stream_from_dists, replay_single
+from kmergma.utils.fasta import FastaRecord, read_fasta
 
 
 def test_first_window_hit_is_missed():
@@ -73,7 +73,7 @@ def test_record_len_guard():
     genomes of any total size are the supported path, bench.py 3G run)."""
     import pytest
 
-    from kmergma_tpu.ops.scan import _check_record_len
+    from kmergma.ops.scan import _check_record_len
 
     _check_record_len(2**31 - 3)  # largest allowed
     with pytest.raises(ValueError, match="per-record device indexing limit"):

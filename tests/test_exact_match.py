@@ -2,8 +2,8 @@
 
 import pytest
 
-from kmergma_tpu.ops.exact_match import exact_match, first_match
-from kmergma_tpu.utils.fasta import fasta_id_to_cumulative_len_dict, read_fasta
+from kmergma.ops.exact_match import exact_match, first_match
+from kmergma.utils.fasta import fasta_id_to_cumulative_len_dict, read_fasta
 
 
 class TestSingleSeq:
@@ -49,8 +49,8 @@ class TestReader:
 
 def test_engine_exact_match_matches_host(test_genome):
     """The prefix-register engine path must find exactly the true matches."""
-    from kmergma_tpu.ops.exact_match import match_starts_engine, match_starts_np
-    from kmergma_tpu.utils.fasta import read_fasta
+    from kmergma.ops.exact_match import match_starts_engine, match_starts_np
+    from kmergma.utils.fasta import read_fasta
 
     rec = next(read_fasta(test_genome))
     sub = rec.seq.upper()
@@ -69,10 +69,10 @@ def test_engine_exact_match_matches_host(test_genome):
 
 def test_engine_compiles_once_across_queries(test_genome):
     """Different queries and query lengths share ONE compiled program
-    (VERDICT r3 weak #5: the old spectrum engine recompiled the full
+    (the old spectrum engine recompiled the full
     bitmap pipeline per query length)."""
-    from kmergma_tpu.ops import exact_match as em
-    from kmergma_tpu.utils.fasta import read_fasta
+    from kmergma.ops import exact_match as em
+    from kmergma.utils.fasta import read_fasta
 
     rec = next(read_fasta(test_genome))
     sub = rec.seq.upper()

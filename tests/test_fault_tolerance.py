@@ -7,9 +7,9 @@ import pytest
 
 import jax
 
-from kmergma_tpu.ops import scan as scan_mod
-from kmergma_tpu.ops.reference import cluster_ref_api, eliminate_null_params, gen_ref_ws_cons
-from kmergma_tpu.ops.scan import ScanEngine, _with_retry
+from kmergma.ops import scan as scan_mod
+from kmergma.ops.reference import cluster_ref_api, eliminate_null_params, gen_ref_ws_cons
+from kmergma.ops.scan import ScanEngine, _with_retry
 
 
 class _Flaky:
@@ -56,9 +56,9 @@ def test_record_stream_retries_failed_region_fetch(monkeypatch):
     monkeypatch.setattr(
         scan_mod, "_with_retry", lambda fn, attempts=2, delay_s=5.0: _with_retry(fn, attempts, 0.0)
     )
-    # whole-record scans ride the r5 planned dispatch (_split_planned here)
-    flaky_dev = _Flaky(scan_mod._split_planned, fails=1)
-    monkeypatch.setattr(scan_mod, "_split_planned", flaky_dev)
+    # whole-record scans ride the planned dispatch
+    flaky_dev = _Flaky(scan_mod._planned_dispatch, fails=1)
+    monkeypatch.setattr(scan_mod, "_planned_dispatch", flaky_dev)
     got = eng.record_stream(codes, thr, codes_dev=eng.prepare_codes(codes))
     assert flaky_dev.calls >= 2  # failed once, retried
     assert got[0] == expected[0] and got[1] == expected[1]
@@ -118,9 +118,9 @@ class _DyingEngine:
 
 def test_cluster_miner_kill_resume(tmp_path, ref_fasta, test_genome):
     """Kill the cluster miner mid-genome; resuming from the checkpoint must
-    reproduce the uninterrupted hit set exactly (VERDICT round-1 item 8)."""
-    from kmergma_tpu.models.omn_miner import mine_genome_clusters
-    from kmergma_tpu.ops.scan_cluster import ClusterScanEngine
+    reproduce the uninterrupted hit set exactly."""
+    from kmergma.models.omn_miner import mine_genome_clusters
+    from kmergma.ops.scan_cluster import ClusterScanEngine
 
     clusters = eliminate_null_params(cluster_ref_api(ref_fasta, 6, cutoffs=[7, 12, 20, 25]))
     thrs = [35.0, 31.0, 38.0, 34.0, 27.0, 27.0]
@@ -146,7 +146,7 @@ def test_cluster_miner_kill_resume(tmp_path, ref_fasta, test_genome):
 
 def test_find_genes_checkpoint_api(tmp_path, mini_genome, ref_fasta):
     """checkpoint_path is reachable from the public API (find_genes)."""
-    from kmergma_tpu.api import find_genes
+    from kmergma.api import find_genes
 
     from tests.test_api_golden import REFERENCE_GOLDEN_HITS
 
@@ -160,8 +160,8 @@ def test_find_genes_checkpoint_api(tmp_path, mini_genome, ref_fasta):
 def test_strobe_miner_checkpoint_resume(tmp_path, ref_fasta, test_genome):
     """The strobemer miner checkpoints per record and resumes to the exact
     uninterrupted hit set (parity with the k-mer miners)."""
-    from kmergma_tpu.models.strobe_miner import gen_strobe_ref_ws_cons, strobe_mine_genome
-    from kmergma_tpu.utils.checkpoint import ScanCheckpoint
+    from kmergma.models.strobe_miner import gen_strobe_ref_ws_cons, strobe_mine_genome
+    from kmergma.utils.checkpoint import ScanCheckpoint
 
     profile = gen_strobe_ref_ws_cons(ref_fasta)
     full = strobe_mine_genome(test_genome, profile, thr=30, do_align=False, get_hit_loci=True)
@@ -178,7 +178,7 @@ def test_strobe_miner_checkpoint_resume(tmp_path, ref_fasta, test_genome):
         f"|ws={profile.windowsize}|thr=30"
     )
     ck = ScanCheckpoint.load_or_create(ckpt_path, gid)
-    from kmergma_tpu.utils.fasta import as_records
+    from kmergma.utils.fasta import as_records
 
     recs = as_records(test_genome)
     pos0 = len(recs[0])
@@ -200,8 +200,8 @@ def test_mid_record_segment_resume(tmp_path, ref_fasta):
     """A record spanning several segments killed mid-scan resumes from the
     last finished SEGMENT (SURVEY section 5.4 'last completed tile index'),
     recomputing only the remaining segments and producing identical hits."""
-    from kmergma_tpu.models.miner import mine_genome
-    from kmergma_tpu.utils.fasta import FastaRecord, as_records
+    from kmergma.models.miner import mine_genome
+    from kmergma.utils.fasta import FastaRecord, as_records
 
     profile = gen_ref_ws_cons(ref_fasta, 6)
     rng = np.random.default_rng(5)
@@ -268,8 +268,8 @@ def test_segment_resume_discards_stale_parameters(tmp_path, ref_fasta):
     silently misread - results must still be exact."""
     import json
 
-    from kmergma_tpu.models.miner import mine_genome
-    from kmergma_tpu.utils.fasta import FastaRecord, as_records
+    from kmergma.models.miner import mine_genome
+    from kmergma.utils.fasta import FastaRecord, as_records
 
     profile = gen_ref_ws_cons(ref_fasta, 6)
     rng = np.random.default_rng(6)
@@ -320,14 +320,14 @@ def test_sharded_mid_record_segment_resume(tmp_path, ref_fasta):
     """Sharded engine: a record spanning >=3 segment batches killed
     mid-scan resumes from the last batch every shard completed, and only
     the remaining batches are recomputed (SURVEY 5.4 'last completed tile
-    index per shard'; VERDICT r4 next-round #4)."""
+    index per shard')."""
     import json
     import os
 
-    from kmergma_tpu.models.miner import mine_genome
-    from kmergma_tpu.parallel.mesh import make_mesh
-    from kmergma_tpu.parallel.sharded_scan import ShardedScanEngine
-    from kmergma_tpu.utils.fasta import FastaRecord, as_records
+    from kmergma.models.miner import mine_genome
+    from kmergma.parallel.mesh import make_mesh
+    from kmergma.parallel.sharded_scan import ShardedScanEngine
+    from kmergma.utils.fasta import FastaRecord, as_records
 
     profile = gen_ref_ws_cons(ref_fasta, 6)
     rng = np.random.default_rng(7)
@@ -388,31 +388,27 @@ def test_sharded_mid_record_segment_resume(tmp_path, ref_fasta):
 
 def test_sharded_segmented_stream_equals_unsegmented(tmp_path, ref_fasta, mini_genome):
     """The segmented (checkpointed) sharded pass must produce the same
-    stream as the one-dispatch pass, for both the split and the FUSED
-    per-shard kernels (interpret mode on the 8-device CPU mesh)."""
-    from kmergma_tpu.parallel.mesh import make_mesh
-    from kmergma_tpu.parallel.sharded_scan import ShardedScanEngine
-    from kmergma_tpu.utils.checkpoint import ScanCheckpoint
-    from kmergma_tpu.utils.fasta import as_records
+    stream as the one-dispatch pass (8-device CPU mesh)."""
+    from kmergma.parallel.mesh import make_mesh
+    from kmergma.parallel.sharded_scan import ShardedScanEngine
+    from kmergma.utils.checkpoint import ScanCheckpoint
+    from kmergma.utils.fasta import as_records
 
     profile = gen_ref_ws_cons(ref_fasta, 6)
     record = as_records(mini_genome)[0]
     thr = 30.0
-    for fused in (False, True):
-        engine = ShardedScanEngine(
-            profile.sum_kfv, k=6, ws=profile.windowsize, r=profile.n_records,
-            mesh=make_mesh(8), chunk_windows=1024, use_fused=fused,
-        )
-        if fused:
-            engine.fused_t = 1024  # interpret-mode-sized tiles
-        d0_a, stream_a, _ = engine.record_stream(record.codes, thr)
-        ckpt = ScanCheckpoint.load_or_create(str(tmp_path / f"s{fused}.ckpt"), "g")
-        d0_b, stream_b, _ = engine.record_stream(
-            record.codes, thr, seg_tracker=ckpt.segment_tracker(0)
-        )
-        assert ckpt.seg_next >= 2  # the segmented path actually ran
-        assert (d0_b, stream_b) == (d0_a, stream_a)
-        assert len(stream_a) > 0
+    engine = ShardedScanEngine(
+        profile.sum_kfv, k=6, ws=profile.windowsize, r=profile.n_records,
+        mesh=make_mesh(8), chunk_windows=1024,
+    )
+    d0_a, stream_a, _ = engine.record_stream(record.codes, thr)
+    ckpt = ScanCheckpoint.load_or_create(str(tmp_path / "s.ckpt"), "g")
+    d0_b, stream_b, _ = engine.record_stream(
+        record.codes, thr, seg_tracker=ckpt.segment_tracker(0)
+    )
+    assert ckpt.seg_next >= 2  # the segmented path actually ran
+    assert (d0_b, stream_b) == (d0_a, stream_a)
+    assert len(stream_a) > 0
 
 
 def test_sharded_cluster_mid_record_segment_resume(tmp_path, ref_fasta):
@@ -422,11 +418,11 @@ def test_sharded_cluster_mid_record_segment_resume(tmp_path, ref_fasta):
     import json
     import os
 
-    from kmergma_tpu.models.omn_miner import mine_genome_clusters
-    from kmergma_tpu.ops.reference import cluster_ref_api, eliminate_null_params
-    from kmergma_tpu.parallel.mesh import make_mesh
-    from kmergma_tpu.parallel.sharded_scan import ShardedClusterScanEngine
-    from kmergma_tpu.utils.fasta import FastaRecord, as_records
+    from kmergma.models.omn_miner import mine_genome_clusters
+    from kmergma.ops.reference import cluster_ref_api, eliminate_null_params
+    from kmergma.parallel.mesh import make_mesh
+    from kmergma.parallel.sharded_scan import ShardedClusterScanEngine
+    from kmergma.utils.fasta import FastaRecord, as_records
 
     clusters = eliminate_null_params(cluster_ref_api(ref_fasta, 6, cutoffs=[7, 12, 20, 25]))
     thrs = [35.0, 31.0, 38.0, 34.0, 27.0, 27.0][: len(clusters.profiles)]
@@ -491,11 +487,11 @@ def test_sharded_cluster_mid_record_segment_resume(tmp_path, ref_fasta):
 def test_sharded_cluster_segmented_equals_unsegmented(tmp_path, ref_fasta, mini_genome):
     """The segmented (checkpointed) sharded cluster pass must produce the
     same per-cluster streams as the one-dispatch pass."""
-    from kmergma_tpu.ops.reference import cluster_ref_api, eliminate_null_params
-    from kmergma_tpu.parallel.mesh import make_mesh
-    from kmergma_tpu.parallel.sharded_scan import ShardedClusterScanEngine
-    from kmergma_tpu.utils.checkpoint import ScanCheckpoint
-    from kmergma_tpu.utils.fasta import as_records
+    from kmergma.ops.reference import cluster_ref_api, eliminate_null_params
+    from kmergma.parallel.mesh import make_mesh
+    from kmergma.parallel.sharded_scan import ShardedClusterScanEngine
+    from kmergma.utils.checkpoint import ScanCheckpoint
+    from kmergma.utils.fasta import as_records
 
     clusters = eliminate_null_params(cluster_ref_api(ref_fasta, 6, cutoffs=[7, 12, 20, 25]))
     thrs = [35.0, 31.0, 38.0, 34.0, 27.0, 27.0][: len(clusters.profiles)]

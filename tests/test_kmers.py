@@ -3,9 +3,9 @@ reference suite (reference test/test_folder/test-KmerGMA.jl:1-26)."""
 
 import numpy as np
 
-from kmergma_tpu import as_kmer, as_uint, kmer_count, kmer_dist
-from kmergma_tpu.consts import decode_seq, encode_seq, get_k
-from kmergma_tpu.ops.kmers import kmer_count_into, rolling_kmer_codes
+from kmergma import as_kmer, as_uint, kmer_count, kmer_dist
+from kmergma.consts import decode_seq, encode_seq, get_k
+from kmergma.ops.kmers import kmer_count_into, rolling_kmer_codes
 
 from .conftest import TEST_KFV, TEST_SEQ
 

@@ -1,14 +1,14 @@
 """End-to-end golden conformance tests: hit records must match the reference
 implementation bit-for-bit on the real test fastas
 (reference test-KmerGMA.jl:164-296).  These are the conformance oracle for
-the TPU rebuild (SURVEY.md section 4)."""
+this rebuild (SURVEY.md section 4)."""
 
 import numpy as np
 import pytest
 
-from kmergma_tpu import cluster_ref_api, gen_ref_ws_cons
-from kmergma_tpu.models.miner import mine_genome
-from kmergma_tpu.models.omn_miner import mine_genome_clusters
+from kmergma import cluster_ref_api, gen_ref_ws_cons
+from kmergma.models.miner import mine_genome
+from kmergma.models.omn_miner import mine_genome_clusters
 
 
 @pytest.fixture(scope="module")
@@ -88,7 +88,7 @@ class TestMiniGenome:
         ]
 
     def test_hit_sequences_roundtrip(self, profile6, mini_genome):
-        from kmergma_tpu.utils.fasta import read_fasta
+        from kmergma.utils.fasta import read_fasta
 
         res = mine_genome(mini_genome, profile6, thr=30, do_align=True)
         genome = next(read_fasta(mini_genome)).seq_str().upper()
@@ -101,9 +101,9 @@ class TestRecordKmerGMA:
     golden strings test-KmerGMA.jl:229-254): same hits, no GenomePos field."""
 
     def test_single_record_golden(self, mini_genome, ref_fasta):
-        from kmergma_tpu.models.miner import record_kmergma
-        from kmergma_tpu.ops.reference import gen_ref_ws_cons
-        from kmergma_tpu.utils.fasta import as_records
+        from kmergma.models.miner import record_kmergma
+        from kmergma.ops.reference import gen_ref_ws_cons
+        from kmergma.utils.fasta import as_records
 
         profile = gen_ref_ws_cons(ref_fasta, 6)
         record = as_records(mini_genome)[0]
@@ -115,9 +115,9 @@ class TestRecordKmerGMA:
         ]
 
     def test_short_record_skipped(self, ref_fasta):
-        from kmergma_tpu.models.miner import record_kmergma
-        from kmergma_tpu.ops.reference import gen_ref_ws_cons
-        from kmergma_tpu.utils.fasta import FastaRecord
+        from kmergma.models.miner import record_kmergma
+        from kmergma.ops.reference import gen_ref_ws_cons
+        from kmergma.utils.fasta import FastaRecord
 
         profile = gen_ref_ws_cons(ref_fasta, 6)
         assert record_kmergma(FastaRecord("tiny", b"ACGT" * 10), profile) == []

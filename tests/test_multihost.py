@@ -1,8 +1,8 @@
 """Emulated multi-host distribution test (SURVEY.md section 5.8).
 
 Spawns 2 OS processes, each with 2 virtual CPU devices, joined through
-jax.distributed with gloo CPU collectives - a faithful stand-in for a
-2-host TPU pod (DCN = the gloo TCP link, ICI = intra-process devices).
+jax.distributed with gloo CPU collectives - a stand-in for two hosts (the
+gloo TCP link between processes, intra-process devices within each).
 The production ShardedScanEngine must produce bit-identical candidate
 streams through the 4-device global mesh.
 """
@@ -48,7 +48,7 @@ def test_two_process_sharded_scan():
         assert p.returncode == 0, f"worker failed:\n{out}"
     assert "bit-identical OK" in outs[0]
     assert "bit-identical OK" in outs[1]
-    # scaling estimator numbers must be reported by both workers (the DCN
+    # scaling estimator numbers must be reported by both workers (the cross-host
     # payload anchor for the docs/design.md cost model)
     import re
 
@@ -56,6 +56,6 @@ def test_two_process_sharded_scan():
         m = re.search(r"estimator pass_s=([\d.]+) allgather_bytes=(\d+) bytes_per_bp=([\d.]+)", out)
         assert m, f"estimator line missing:\n{out}"
         # the bitmap payload is ~1/block bytes per bp (block=512): tiny vs
-        # any plausible DCN bandwidth, which is what makes >=80% scaling
+        # any plausible host-to-host bandwidth, which is what makes >=80% scaling
         # efficiency expected - see docs/design.md
         assert float(m.group(3)) < 0.02

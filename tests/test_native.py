@@ -4,8 +4,8 @@ parser on the real fixtures."""
 import numpy as np
 import pytest
 
-from kmergma_tpu.utils.fasta import read_fasta, read_fasta_native
-from kmergma_tpu.utils.native import get_lib
+from kmergma.utils.fasta import read_fasta, read_fasta_native
+from kmergma.utils.native import get_lib
 
 
 @pytest.fixture(scope="module")
@@ -46,8 +46,8 @@ def test_native_rejects_bad_char(lib, tmp_path):
 
 def test_native_miner_golden(lib, ref_fasta, test_genome):
     """End-to-end: the native loader feeds the miner to the same hit set."""
-    from kmergma_tpu.models.miner import mine_genome
-    from kmergma_tpu.ops.reference import gen_ref_ws_cons
+    from kmergma.models.miner import mine_genome
+    from kmergma.ops.reference import gen_ref_ws_cons
 
     profile = gen_ref_ws_cons(ref_fasta, 6)
     recs = read_fasta_native(test_genome)
@@ -58,7 +58,7 @@ def test_native_miner_golden(lib, ref_fasta, test_genome):
 def test_as_records_native_is_production_path(lib, test_genome, monkeypatch):
     """as_records routes paths through the native loader (exact bytes,
     case preserved) and yields identical records to the Python fallback."""
-    from kmergma_tpu.utils import fasta as fasta_mod
+    from kmergma.utils import fasta as fasta_mod
 
     native_recs = fasta_mod.as_records(test_genome)
     monkeypatch.setattr(fasta_mod, "read_fasta_native", lambda p: None)

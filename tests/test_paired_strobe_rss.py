@@ -3,15 +3,15 @@
 
 import numpy as np
 
-from kmergma_tpu.ops.kmers import as_kmer, as_uint
-from kmergma_tpu.ops.paired_kmers import (
+from kmergma.ops.kmers import as_kmer, as_uint
+from kmergma.ops.paired_kmers import (
     as_index,
     initialize_kmers,
     kmer_pair_count,
     kmer_pair_count_into,
 )
-from kmergma_tpu.ops.rss import HUMAN_RSSV, align_rss, is_rss, rss_dist
-from kmergma_tpu.ops.strobemers import (
+from kmergma.ops.rss import HUMAN_RSSV, align_rss, is_rss, rss_dist
+from kmergma.ops.strobemers import (
     get_strobe_2_mer,
     randstrobe_score,
     ungapped_strobe_2_mer_count,
@@ -79,7 +79,7 @@ class TestRSS:
 
 class TestStrobeMiner:
     def test_strobe_find_genes_runs(self, mini_genome, ref_fasta):
-        from kmergma_tpu.api import strobemer_find_genes
+        from kmergma.api import strobemer_find_genes
 
         out = strobemer_find_genes(
             genome_path=mini_genome, ref_path=ref_fasta, verbose=False, do_return_hit_loci=True
@@ -95,7 +95,7 @@ def test_strobe_codes_jnp_matches_numpy():
     (incl. the reference's overflow-selection semantics)."""
     import jax.numpy as jnp
 
-    from kmergma_tpu.ops.strobemers import strobe_2_mer_codes, strobe_2_mer_codes_jnp
+    from kmergma.ops.strobemers import strobe_2_mer_codes, strobe_2_mer_codes_jnp
 
     rng = np.random.default_rng(5)
     codes = rng.integers(0, 4, 5000, dtype=np.int8)
@@ -109,7 +109,7 @@ def test_paired_kmer_device_matches_host_fuzz():
     """kmer_pair_count_device (rolling codes + histogram outer product)
     must equal the host O(n^2) loop bit-for-bit, including the carried
     inner-register quirk in the first k-1 steady-state positions."""
-    from kmergma_tpu.ops.paired_kmers import kmer_pair_count, kmer_pair_count_device
+    from kmergma.ops.paired_kmers import kmer_pair_count, kmer_pair_count_device
 
     rng = np.random.default_rng(3)
     for k in (1, 2, 3, 4):

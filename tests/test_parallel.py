@@ -1,15 +1,15 @@
 """Multi-device sharding tests on the 8-virtual-CPU-device mesh
-(SURVEY.md section 4: shard-merge logic tested without a pod)."""
+(SURVEY.md section 4: shard-merge logic tested without several cards)."""
 
 import numpy as np
 import pytest
 
 import jax
 
-from kmergma_tpu.ops.reference import gen_ref_ws_cons
-from kmergma_tpu.ops.scan import ScanEngine
-from kmergma_tpu.parallel.mesh import make_mesh
-from kmergma_tpu.parallel.sharded_scan import ShardedClusterScanEngine, ShardedScanEngine
+from kmergma.ops.reference import gen_ref_ws_cons
+from kmergma.ops.scan import ScanEngine
+from kmergma.parallel.mesh import make_mesh
+from kmergma.parallel.sharded_scan import ShardedClusterScanEngine, ShardedScanEngine
 
 
 def test_mesh_shapes():
@@ -40,7 +40,7 @@ def test_sharded_stream_equals_single_device():
     assert d0_a == d0_b
     assert stream_a == stream_b
 
-    from kmergma_tpu.models.state_machine import replay_single
+    from kmergma.models.state_machine import replay_single
 
     hits_a = replay_single(stream_a, d0_a, thr, k, ws, n, buff=10)
     hits_b = replay_single(stream_b, d0_b, thr, k, ws, n, buff=10)
@@ -49,7 +49,7 @@ def test_sharded_stream_equals_single_device():
 
 def test_sharded_miner_golden(ref_fasta, test_genome):
     """The sharded engine must reproduce the golden hit set bit-for-bit."""
-    from kmergma_tpu.models.miner import mine_genome
+    from kmergma.models.miner import mine_genome
 
     profile = gen_ref_ws_cons(ref_fasta, 6)
     engine = ShardedScanEngine(
@@ -62,7 +62,7 @@ def test_sharded_miner_golden(ref_fasta, test_genome):
 
 def test_find_genes_devices_golden(mini_genome, ref_fasta):
     """The public API's ``devices=`` path must reproduce the golden hit set."""
-    from kmergma_tpu.api import find_genes
+    from kmergma.api import find_genes
 
     from tests.test_api_golden import REFERENCE_GOLDEN_HITS
 
@@ -73,7 +73,7 @@ def test_find_genes_devices_golden(mini_genome, ref_fasta):
 
 
 def test_find_genes_cluster_mode_devices_golden(mini_genome, ref_fasta):
-    from kmergma_tpu.api import find_genes_cluster_mode
+    from kmergma.api import find_genes_cluster_mode
 
     hits = find_genes_cluster_mode(
         genome_path=mini_genome,
@@ -91,21 +91,21 @@ def test_find_genes_cluster_mode_devices_golden(mini_genome, ref_fasta):
 
 
 def test_sharded_cluster_streams_match_serial(ref_fasta, mini_genome):
-    """Sharded cluster streams are bit-identical to the fused single-device
+    """Sharded cluster streams are bit-identical to the single-device
     cluster engine on real data."""
-    from kmergma_tpu.ops.reference import cluster_ref_api, eliminate_null_params
-    from kmergma_tpu.ops.scan_cluster import ClusterScanEngine
-    from kmergma_tpu.utils.fasta import as_records
+    from kmergma.ops.reference import cluster_ref_api, eliminate_null_params
+    from kmergma.ops.scan_cluster import ClusterScanEngine
+    from kmergma.utils.fasta import as_records
 
     clusters = eliminate_null_params(cluster_ref_api(ref_fasta, 6, cutoffs=[7, 12, 20, 25]))
     record = as_records(mini_genome)[0]
     thrs = [35.0, 31.0, 38.0, 34.0, 27.0, 27.0]
 
-    fused = ClusterScanEngine(clusters.profiles, k=6, chunk_windows=8192)
+    single = ClusterScanEngine(clusters.profiles, k=6, chunk_windows=8192)
     sharded = ShardedClusterScanEngine(
         clusters.profiles, k=6, mesh=make_mesh(8), chunk_windows=8192
     )
-    a = fused.record_streams(record.codes, thrs)
+    a = single.record_streams(record.codes, thrs)
     b = sharded.record_streams(record.codes, thrs)
     assert a == b
 
@@ -129,7 +129,7 @@ def test_tp_profile_lookup_matches_replicated():
     (SURVEY.md section 2.2 TP row, for large-k tables)."""
     import jax.numpy as jnp
 
-    from kmergma_tpu.parallel.tp_lookup import shard_profile, tp_profile_lookup
+    from kmergma.parallel.tp_lookup import shard_profile, tp_profile_lookup
 
     rng = np.random.default_rng(8)
     k = 7  # 16384 bins -> 2048 per device on the 8-device mesh
@@ -145,17 +145,17 @@ def test_tp_profile_lookup_matches_replicated():
 def test_tp_engine_matches_host_k10():
     """The TP engine scans a k=10 (4^10 = 1M bins) profile ON the mesh with
     the table sharded, producing streams and hits bit-identical to the exact
-    int64 host engine (the big-k regime VERDICT r2 flagged as unserved:
-    beyond profile_lookup's one-hot limit, below the int32-headroom guard)."""
-    from kmergma_tpu.models.state_machine import replay_single
-    from kmergma_tpu.ops.scan_host import HostScanEngine
-    from kmergma_tpu.parallel.tp_lookup import TPScanEngine
+    int64 host engine (the big-k regime: a 1M-bin table, below the
+    int32-headroom guard)."""
+    from kmergma.models.state_machine import replay_single
+    from kmergma.ops.scan_host import HostScanEngine
+    from kmergma.parallel.tp_lookup import TPScanEngine
 
     rng = np.random.default_rng(10)
     k, ws, r = 10, 1200, 3
     n = 9000
     # profile from r random records so S is sparse but realistic
-    from kmergma_tpu.ops.kmers import kmer_count
+    from kmergma.ops.kmers import kmer_count
 
     s = np.zeros(4**k, dtype=np.int64)
     for _ in range(r):
@@ -193,11 +193,11 @@ def test_tp_engine_matches_host_k10():
 def test_mine_genome_routes_big_k_to_tp(monkeypatch):
     """mine_genome's engine selection routes k=10 profiles through the TP
     engine when a mesh is available (tp_lookup's production caller)."""
-    from kmergma_tpu.models import miner as miner_mod
-    from kmergma_tpu.ops.reference import RefProfile
+    from kmergma.models import miner as miner_mod
+    from kmergma.ops.reference import RefProfile
 
     seen = {}
-    import kmergma_tpu.parallel.tp_lookup as tpl
+    import kmergma.parallel.tp_lookup as tpl
 
     real = tpl.TPScanEngine
 
@@ -208,8 +208,8 @@ def test_mine_genome_routes_big_k_to_tp(monkeypatch):
 
     monkeypatch.setattr(tpl, "TPScanEngine", Spy)
     rng = np.random.default_rng(0)
-    from kmergma_tpu.ops.kmers import kmer_count
-    from kmergma_tpu.utils.fasta import FastaRecord
+    from kmergma.ops.kmers import kmer_count
+    from kmergma.utils.fasta import FastaRecord
 
     k, ws = 10, 600
     seq = rng.integers(0, 4, ws, dtype=np.int8)
@@ -222,55 +222,3 @@ def test_mine_genome_routes_big_k_to_tp(monkeypatch):
     res = miner_mod.mine_genome([rec], prof, thr=200.0, do_align=False)
     assert seen.get("used"), "big-k scan did not route through TPScanEngine"
     assert res.stats.records_scanned == 1
-
-
-def test_sharded_fused_matches_split(ref_fasta, mini_genome):
-    """The per-shard FUSED kernel path (carry seeded from each shard's
-    locally computed first-window bound) must produce streams bit-identical
-    to the split sharded pass - interpret mode on the 8-device CPU mesh
-    (VERDICT r3 weak #3 done-criterion)."""
-    from kmergma_tpu.ops.reference import gen_ref_ws_cons
-    from kmergma_tpu.utils.fasta import as_records
-
-    profile = gen_ref_ws_cons(ref_fasta, 6)
-    record = as_records(mini_genome)[0]
-    thr = 30.0
-
-    split = ShardedScanEngine(
-        profile.sum_kfv, k=6, ws=profile.windowsize, r=profile.n_records,
-        mesh=make_mesh(8), chunk_windows=4096, use_fused=False,
-    )
-    fused = ShardedScanEngine(
-        profile.sum_kfv, k=6, ws=profile.windowsize, r=profile.n_records,
-        mesh=make_mesh(8), chunk_windows=4096, use_fused=True,
-    )
-    fused.fused_t = 1024  # small tiles so the interpret-mode run stays fast
-    assert fused.sharded_fused
-    a = split.record_stream(record.codes, thr)
-    b = fused.record_stream(record.codes, thr)
-    assert a[:2] == b[:2]
-    assert len(b[1]) > 0
-
-
-def test_sharded_cluster_fused_matches_serial(ref_fasta, mini_genome):
-    """Sharded cluster scan on the per-shard fused MULTI-cluster kernel:
-    bit-identical streams to the serial cluster engine (golden fixture)."""
-    from kmergma_tpu.ops.reference import cluster_ref_api, eliminate_null_params
-    from kmergma_tpu.ops.scan_cluster import ClusterScanEngine
-    from kmergma_tpu.utils.fasta import as_records
-
-    clusters = eliminate_null_params(cluster_ref_api(ref_fasta, 6, cutoffs=[7, 12, 20, 25]))
-    record = as_records(mini_genome)[0]
-    thrs = [35.0, 31.0, 38.0, 34.0, 27.0, 27.0]
-
-    serial = ClusterScanEngine(clusters.profiles, k=6, chunk_windows=4096)
-    sharded = ShardedClusterScanEngine(
-        clusters.profiles, k=6, mesh=make_mesh(8), chunk_windows=4096,
-        use_fused=True,
-    )
-    for e in sharded.engines:
-        e.fused_t = 1024
-    assert sharded.sharded_fused
-    a = serial.record_streams(record.codes, thrs)
-    b = sharded.record_streams(record.codes, thrs)
-    assert a == b

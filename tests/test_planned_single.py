@@ -1,14 +1,14 @@
 """Single-profile device-planned assembly (ops/scan.py _planned_record /
-_fused_planned / _split_planned): stream bit-equality with the host-planned
-path across the split and fused bitmap sources, overflow fallback, and the
-tiny-record clamp (VERDICT r4 #1 ported to the single-profile engine)."""
+_planned_dispatch): stream bit-equality with the host-planned path, the
+reduced, segmented and full-fetch assemblies against the exact int64 host
+engine, overflow fallback, and the tiny-record clamp."""
 
 import numpy as np
 import pytest
 
-from kmergma_tpu.models.state_machine import replay_single
-from kmergma_tpu.ops.kmers import kmer_count
-from kmergma_tpu.ops.scan import ScanEngine
+from kmergma.models.state_machine import replay_single
+from kmergma.ops.kmers import kmer_count
+from kmergma.ops.scan import ScanEngine
 
 
 def _problem(seed, n=50_000, k=6, ws=240, r=5):
@@ -41,7 +41,7 @@ def test_planned_split_matches_host_planned(seed, thr_pct):
     s, codes = _problem(seed)
     planned, hostp = _engines(s, 6, 240, 5)
     d = None
-    from kmergma_tpu.ops.scan_host import scan_window_distances_np_i64
+    from kmergma.ops.scan_host import scan_window_distances_np_i64
 
     d = scan_window_distances_np_i64(codes, s, 6, 240, 5)
     thr = float(np.percentile(d / planned.scale, thr_pct))
@@ -59,7 +59,7 @@ def test_planned_reduced_matches_host_reduced():
     planned, hostp = _engines(s, 6, 240, 5)
     planned.full_fetch_windows = 0
     hostp.full_fetch_windows = 0
-    from kmergma_tpu.ops.scan_host import scan_window_distances_np_i64
+    from kmergma.ops.scan_host import scan_window_distances_np_i64
 
     d = scan_window_distances_np_i64(codes, s, 6, 240, 5)
     thr = float(np.percentile(d / planned.scale, 4.0))
@@ -69,60 +69,12 @@ def test_planned_reduced_matches_host_reduced():
     assert len(a[1]) > 0
 
 
-def test_planned_fused_matches_split(ref_fasta, mini_genome):
-    """FUSED-kernel planned dispatch (interpret mode on CPU, >= 2^16
-    windows so the fused branch actually engages) vs the split planned
-    dispatch and the host-planned path: identical streams."""
-    from kmergma_tpu.ops.reference import gen_ref_ws_cons
-    from kmergma_tpu.utils.fasta import as_records
-
-    profile = gen_ref_ws_cons(ref_fasta, 6)
-    mini = as_records(mini_genome)[0].codes
-    rng = np.random.default_rng(8)
-    # ~70k windows: mini genome + random tail (>= the 2^16 fused gate)
-    codes = np.concatenate([mini, rng.integers(0, 4, 30_000, dtype=np.int8)])
-    thr = 30.0
-    kw = dict(
-        k=6, ws=profile.windowsize, r=profile.n_records,
-        chunk_windows=1 << 16, use_pallas=True,
-    )
-    fusedp = ScanEngine(profile.sum_kfv, use_fused=True, **kw)
-    assert fusedp.use_fused
-    fusedp.fused_t = 1024  # interpret-mode-sized tiles
-    splitp = ScanEngine(profile.sum_kfv, **kw)
-    hostp = ScanEngine(profile.sum_kfv, **kw)
-    hostp.device_plan = False
-
-    # count which planned jit actually ran (a too-small record would
-    # silently take the split branch and test nothing)
-    import kmergma_tpu.ops.scan as S
-
-    calls = {"fused": 0}
-    real_f = S._fused_planned
-
-    def counting(*a, **k):
-        calls["fused"] += 1
-        return real_f(*a, **k)
-
-    S._fused_planned = counting
-    try:
-        b = hostp.record_stream(codes, thr)
-        a = splitp.record_stream(codes, thr)
-        c = fusedp.record_stream(codes, thr)
-    finally:
-        S._fused_planned = real_f
-    assert calls["fused"] == 1
-    assert a[:2] == b[:2]
-    assert c[:2] == b[:2]
-    assert len(b[1]) > 0
-
-
 def test_planned_overflow_falls_back_and_grows():
     s, codes = _problem(4)
     planned, hostp = _engines(s, 6, 240, 5)
     planned.plan_regions = 2
     planned.plan_regions_max = 8
-    from kmergma_tpu.ops.scan_host import scan_window_distances_np_i64
+    from kmergma.ops.scan_host import scan_window_distances_np_i64
 
     d = scan_window_distances_np_i64(codes, s, 6, 240, 5)
     thr = float(np.percentile(d / planned.scale, 4.0))
@@ -136,7 +88,7 @@ def test_planned_overflow_falls_back_and_grows():
 
 def test_planned_tiny_record_tail_clamp():
     """A record whose active tail block expands past nw must not emit an
-    out-of-range region (r5 regression: negative-limit region rows)."""
+    out-of-range region (regression: negative-limit region rows)."""
     s, codes = _problem(5, n=900, ws=240, r=5)
     planned, hostp = _engines(s, 6, 240, 5)
     # threshold high enough that the tail windows are active
@@ -154,7 +106,7 @@ def test_planned_run_slot_overflow_falls_back(monkeypatch):
     shrunk via the module global, with a UNIQUE chunk so the planned jit
     traces fresh at the patched size (the global is read at trace time
     and is not part of the jit key)."""
-    import kmergma_tpu.ops.scan as S
+    import kmergma.ops.scan as S
 
     monkeypatch.setattr(S, "_RED_RUNS", 64)
     s, codes = _problem(6)
@@ -163,7 +115,7 @@ def test_planned_run_slot_overflow_falls_back(monkeypatch):
     hostp.device_plan = False
     planned.full_fetch_windows = 0
     hostp.full_fetch_windows = 0
-    from kmergma_tpu.ops.scan_host import scan_window_distances_np_i64
+    from kmergma.ops.scan_host import scan_window_distances_np_i64
 
     d = scan_window_distances_np_i64(codes, s, 6, 240, 5)
     # a mid-distribution threshold yields ~400 runs >> the shrunk bucket
@@ -182,3 +134,57 @@ def test_planned_run_slot_overflow_falls_back(monkeypatch):
     assert calls["fallback"] == 1  # the run bucket genuinely overflowed
     assert a[:2] == b[:2]
     assert len(a[1]) > 2 * 64  # the fixture has > bucket runs
+
+
+def _low_complexity_problem(seed, n=40_000, k=6, ws=240, r=6):
+    """References sharing a poly-A run, so max(S) >= 256."""
+    rng = np.random.default_rng(seed)
+    refs = []
+    for _ in range(r):
+        ref = rng.integers(0, 4, ws, dtype=np.int8)
+        ref[20:80] = 0
+        refs.append(ref)
+    s = np.zeros(4**k, dtype=np.int64)
+    for ref in refs:
+        s += kmer_count(ref, k).astype(np.int64)
+    assert s.max() >= 256
+    codes = rng.integers(0, 4, n, dtype=np.int8)
+    for pos in range(1_500, n - ws - 100, 4_000):
+        mutant = refs[pos % r].copy()
+        idx = rng.integers(0, ws, ws // 6)
+        mutant[idx] = rng.integers(0, 4, idx.shape[0])
+        codes[pos : pos + ws] = mutant
+    return s, codes
+
+
+@pytest.mark.parametrize("problem", ["random", "low_complexity"])
+@pytest.mark.parametrize("mode", ["planned", "host_planned", "reduced", "segmented", "full"])
+def test_assembly_modes_vs_host_engine(mode, problem):
+    """Every stream assembly of the bitmap pass replays to the exact int64
+    host engine's hits (full-fetch streams are element-identical)."""
+    from kmergma.ops.scan_host import HostScanEngine, scan_window_distances_np_i64
+
+    k, ws, r = 6, 240, (5 if problem == "random" else 6)
+    s, codes = _problem(7) if problem == "random" else _low_complexity_problem(8)
+    chunk = 1 << 13 if mode == "segmented" else 1 << 15
+    eng = ScanEngine(s, k=k, ws=ws, r=r, chunk_windows=chunk)
+    if mode == "host_planned":
+        eng.device_plan = False
+    elif mode == "reduced":
+        eng.full_fetch_windows = 0
+    elif mode == "full":
+        eng.assemble_mode = "full"
+    if mode == "segmented":
+        assert codes.shape[0] - ws + 1 > 2 * eng.chunk
+    host = HostScanEngine(s, k=k, ws=ws, r=r)
+    d = scan_window_distances_np_i64(codes, s, k, ws, r)
+    thr = float(np.percentile(d / host.scale, 4.0))
+    d0_e, stream_e, _ = eng.record_stream(codes, thr)
+    d0_h, stream_h, _ = host.record_stream(codes, thr)
+    assert d0_e == d0_h
+    n = codes.shape[0]
+    hits_e = replay_single(stream_e, d0_e, thr, k, ws, n, 30)
+    assert hits_e == replay_single(stream_h, d0_h, thr, k, ws, n, 30)
+    assert len(hits_e) > 0
+    if mode == "full":
+        assert stream_e == stream_h

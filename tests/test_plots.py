@@ -9,11 +9,11 @@ import numpy as np
 
 
 def test_mutation_plot_saves_figure(tmp_path):
-    from kmergma_tpu.ops.thresholds import substitution_distance_sweep
-    from kmergma_tpu.utils.plots import mutation_plot
+    from kmergma.ops.thresholds import substitution_distance_sweep
+    from kmergma.utils.plots import mutation_plot
 
     rng = np.random.default_rng(0)
-    from kmergma_tpu.ops.kmers import kmer_count
+    from kmergma.ops.kmers import kmer_count
 
     base = rng.integers(0, 4, 150, dtype=np.int8)
     mean_kfv = kmer_count(base, 4).astype(np.float64)

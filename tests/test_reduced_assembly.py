@@ -10,9 +10,9 @@ the run extraction, and the borderline fallback guard.
 import numpy as np
 import pytest
 
-from kmergma_tpu.models.state_machine import replay_single
-from kmergma_tpu.ops.kmers import kmer_count
-from kmergma_tpu.ops.scan import ScanEngine, _extract_runs
+from kmergma.models.state_machine import replay_single
+from kmergma.ops.kmers import kmer_count
+from kmergma.ops.scan import ScanEngine, _extract_runs
 
 
 def _engine_and_codes(seed: int, n: int = 60_000, k: int = 5, ws: int = 120, r: int = 3):
@@ -103,8 +103,8 @@ def test_cluster_reduced_matches_full_replay():
     """Cluster-mode reduced assembly (batched per-cluster run reductions,
     imax truncation) must replay bit-identically to full-fetch mode on a
     synthetic dense record."""
-    from kmergma_tpu.models.state_machine import OmnHitEvent, replay_omn
-    from kmergma_tpu.ops.scan_cluster import ClusterScanEngine
+    from kmergma.models.state_machine import OmnHitEvent, replay_omn
+    from kmergma.ops.scan_cluster import ClusterScanEngine
 
     rng = np.random.default_rng(9)
     k = 5
@@ -158,7 +158,7 @@ def test_device_run_reduce_matches_host_trio(seed):
     window) runs, and edge-at-coverage-end cases."""
     import jax.numpy as jnp
 
-    from kmergma_tpu.ops.scan import (
+    from kmergma.ops.scan import (
         _RUN_BUCKET,
         _combine_pieces,
         _device_run_reduce,
@@ -221,7 +221,7 @@ def test_device_run_reduce_matches_host_trio(seed):
     class E:
         scale = 1.0
 
-    from kmergma_tpu.ops.scan import ScanEngine
+    from kmergma.ops.scan import ScanEngine
 
     got = ScanEngine._stream_from_device_reduce(E(), red, 0.0, run_bucket=64)
     if got is None:

@@ -3,15 +3,15 @@ ported from the reference suite (reference test-KmerGMA.jl:28-112)."""
 
 import numpy as np
 
-from kmergma_tpu import (
+from kmergma import (
     Profile,
     cluster_ref_api,
     eliminate_null_params,
     gen_ref_ws_cons,
     get_cluster_index,
 )
-from kmergma_tpu.consts import encode_seq
-from kmergma_tpu.utils.fasta import read_fasta
+from kmergma.consts import encode_seq
+from kmergma.utils.fasta import read_fasta
 
 from .conftest import TEST_CONSENSUS_SEQ, TEST_SEQ
 

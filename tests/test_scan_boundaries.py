@@ -3,8 +3,8 @@ end of a record must not be misattributed by region-slice clamping."""
 
 import numpy as np
 
-from kmergma_tpu.models.state_machine import candidate_stream_from_dists, replay_single
-from kmergma_tpu.ops.scan import ScanEngine, scan_window_distances_np
+from kmergma.models.state_machine import candidate_stream_from_dists, replay_single
+from kmergma.ops.scan import ScanEngine, scan_window_distances_np
 
 
 def _oracle_stream(codes, s, k, ws, r, thr_scaled):
@@ -22,7 +22,7 @@ def test_candidates_at_record_end():
     n = 3000
     codes = rng.integers(0, 4, n, dtype=np.int8)
     codes[n - ws :] = motif  # strong match ending exactly at the last window
-    from kmergma_tpu.ops.kmers import rolling_kmer_codes
+    from kmergma.ops.kmers import rolling_kmer_codes
 
     # profile = r * spectrum of the motif (so the final window distance = 0)
     spec = (np.bincount(rolling_kmer_codes(motif, k), minlength=4**k) * r).astype(np.int64)
@@ -53,7 +53,7 @@ def test_candidate_exactly_at_span_boundary():
     codes = rng.integers(0, 4, n, dtype=np.int8)
     # place a match so its window minimum lands exactly at window index 1024
     codes[chunk : chunk + ws] = motif
-    from kmergma_tpu.ops.kmers import rolling_kmer_codes
+    from kmergma.ops.kmers import rolling_kmer_codes
 
     spec = (np.bincount(rolling_kmer_codes(motif, k), minlength=4**k) * r).astype(np.int64)
     engine = ScanEngine(spec, k=k, ws=ws, r=r, chunk_windows=chunk)
@@ -75,10 +75,10 @@ def test_segment_boundary_straddling_hit(ref_fasta):
     must produce the identical stream and hits as the single-transfer path."""
     import numpy as np
 
-    from kmergma_tpu.models.state_machine import replay_single
-    from kmergma_tpu.ops.reference import gen_ref_ws_cons
-    from kmergma_tpu.ops.scan import ScanEngine
-    from kmergma_tpu.utils.fasta import as_records
+    from kmergma.models.state_machine import replay_single
+    from kmergma.ops.reference import gen_ref_ws_cons
+    from kmergma.ops.scan import ScanEngine
+    from kmergma.utils.fasta import as_records
 
     profile = gen_ref_ws_cons(ref_fasta, 6)
     k, ws = profile.k, profile.windowsize
@@ -112,7 +112,7 @@ def test_below_runs_straddle_region_boundaries():
     n = 12000
     codes = rng.integers(0, 4, n, dtype=np.int8)
     # plant several wide near-profile stretches so runs span > rspan windows
-    from kmergma_tpu.ops.kmers import kmer_count
+    from kmergma.ops.kmers import kmer_count
 
     motif = rng.integers(0, 4, ws, dtype=np.int8)
     s = (r * kmer_count(motif, k)).astype(np.int64)

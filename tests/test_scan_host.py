@@ -3,13 +3,13 @@
 import numpy as np
 import pytest
 
-from kmergma_tpu.ops.scan import ScanEngine, check_int32_headroom, scan_window_distances_np
-from kmergma_tpu.ops.scan_host import (
+from kmergma.ops.scan import ScanEngine, check_int32_headroom, scan_window_distances_np
+from kmergma.ops.scan_host import (
     HostScanEngine,
     check_int64_headroom,
     scan_window_distances_np_i64,
 )
-from kmergma_tpu.utils.native import scan_rolling_i64_native
+from kmergma.utils.native import scan_rolling_i64_native
 
 
 def test_native_rolling_matches_oracle():
@@ -41,7 +41,7 @@ def test_host_engine_stream_matches_device_engine():
     assert d0_a == d0_b
     # host streams carry exact values for edges too; the device stream's
     # edge stand-ins replay identically, so compare through the replay
-    from kmergma_tpu.models.state_machine import replay_single
+    from kmergma.models.state_machine import replay_single
 
     hits_a = replay_single(stream_a, d0_a, thr, k, ws, codes.shape[0], buff=10)
     hits_b = replay_single(stream_b, d0_b, thr, k, ws, codes.shape[0], buff=10)
@@ -62,8 +62,8 @@ def test_miner_falls_back_beyond_int32(ref_fasta, mini_genome):
     """A profile scaled beyond int32 headroom must route through the host
     engine and still produce the same hits as an equivalent scaled-down
     profile on the device engine."""
-    from kmergma_tpu.models.miner import mine_genome
-    from kmergma_tpu.ops.reference import gen_ref_ws_cons
+    from kmergma.models.miner import mine_genome
+    from kmergma.ops.reference import gen_ref_ws_cons
 
     profile = gen_ref_ws_cons(ref_fasta, 6)
     # inflate the denominator far past int32 headroom: S*m, R*m keeps the

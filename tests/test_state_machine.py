@@ -9,7 +9,7 @@ edges), runs at array boundaries, goal_ind suppression chains.
 import numpy as np
 import pytest
 
-from kmergma_tpu.models.state_machine import (
+from kmergma.models.state_machine import (
     candidate_stream_from_dists,
     replay_single,
     replay_single_seq,

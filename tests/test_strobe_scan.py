@@ -5,8 +5,8 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from kmergma_tpu.ops.scan_strobe import strobe_scan_from_codes, strobe_scan_distances_np
-from kmergma_tpu.ops.strobemers import strobe_2_mer_codes
+from kmergma.ops.scan_strobe import strobe_scan_from_codes, strobe_scan_distances_np
+from kmergma.ops.strobemers import strobe_2_mer_codes
 
 
 def test_strobe_scan_matches_sequential_oracle():
@@ -30,20 +30,20 @@ def test_strobe_scan_matches_sequential_oracle():
 def test_strobe_scan_float_matches_miner_recurrence():
     """The scaled-integer distances equal the float recurrence the
     strobe miner runs (up to float64 accumulation noise)."""
-    from kmergma_tpu.models.strobe_miner import gen_strobe_ref_ws_cons, strobe_mine_genome
+    from kmergma.models.strobe_miner import gen_strobe_ref_ws_cons, strobe_mine_genome
 
     profile = gen_strobe_ref_ws_cons("tests/data/Alp_V_ref.fasta")
     res = strobe_mine_genome(
         "tests/data/Alp_V_locus.fasta", profile, thr=30, do_return_dists=True, do_align=False
     )
 
-    from kmergma_tpu.utils.fasta import read_fasta
+    from kmergma.utils.fasta import read_fasta
 
     rec = next(read_fasta("tests/data/Alp_V_locus.fasta"))
     k = profile.k
     # integer path needs the integer summed spectrum: rebuild it
     import numpy as np
-    from kmergma_tpu.ops.strobemers import ungapped_strobe_2_mer_count_into
+    from kmergma.ops.strobemers import ungapped_strobe_2_mer_count_into
 
     sums = np.zeros(4 ** (2 * profile.s))
     n = 0
@@ -63,9 +63,9 @@ def test_strobe_span_engine_hits_match_dense_replay():
     """The production span engine's hits (fixed compiled shapes, pruned
     bitmap + region machinery) equal replaying the dense sequential-oracle
     distance array - hit-level bit-equality for the strobe path."""
-    from kmergma_tpu.models.state_machine import candidate_stream_from_dists, replay_single
-    from kmergma_tpu.models.strobe_miner import gen_strobe_ref_ws_cons, strobe_mine_genome
-    from kmergma_tpu.utils.fasta import read_fasta
+    from kmergma.models.state_machine import candidate_stream_from_dists, replay_single
+    from kmergma.models.strobe_miner import gen_strobe_ref_ws_cons, strobe_mine_genome
+    from kmergma.utils.fasta import read_fasta
 
     profile = gen_strobe_ref_ws_cons("tests/data/Alp_V_ref.fasta")
     thr = 30.0
@@ -93,8 +93,8 @@ def test_strobe_span_engine_hits_match_dense_replay():
 def test_device_extract_matches_host_path(ref_fasta, mini_genome):
     """strobe_mine_genome's device-extraction path (the one bench.py times:
     quarter-packed genome H2D -> strobe_2_mer_codes_jnp -> span engine) must
-    produce the same hits as host extraction (VERDICT r3 weak #2)."""
-    from kmergma_tpu.models.strobe_miner import gen_strobe_ref_ws_cons, strobe_mine_genome
+    produce the same hits as host extraction."""
+    from kmergma.models.strobe_miner import gen_strobe_ref_ws_cons, strobe_mine_genome
 
     prof = gen_strobe_ref_ws_cons(ref_fasta)
     host = strobe_mine_genome(
@@ -113,8 +113,8 @@ def test_device_extract_with_genome_dev(ref_fasta, mini_genome):
     supplies) matches the transfer path."""
     import jax.numpy as jnp
 
-    from kmergma_tpu.models.strobe_miner import gen_strobe_ref_ws_cons, strobe_mine_genome
-    from kmergma_tpu.utils.fasta import as_records
+    from kmergma.models.strobe_miner import gen_strobe_ref_ws_cons, strobe_mine_genome
+    from kmergma.utils.fasta import as_records
 
     prof = gen_strobe_ref_ws_cons(ref_fasta)
     rec = as_records(mini_genome)[0]

@@ -8,15 +8,15 @@ are the reference's own.
 
 import numpy as np
 
-from kmergma_tpu import (
+from kmergma import (
     cluster_ref_api,
     estimate_optimal_threshold,
     estimate_optimal_thresholds,
     gen_ref_ws_cons,
 )
-from kmergma_tpu.consts import decode_seq, encode_seq
-from kmergma_tpu.ops.thresholds import mutate_seq, mutate_seq_codes
-from kmergma_tpu.utils.julia_rand import JuliaXoshiro
+from kmergma.consts import decode_seq, encode_seq
+from kmergma.ops.thresholds import mutate_seq, mutate_seq_codes
+from kmergma.utils.julia_rand import JuliaXoshiro
 
 
 def test_julia_xoshiro_core():
